@@ -1,9 +1,9 @@
-"""libzling_tpu: a TPU-native lossless codec implementing the zling format.
+"""libzling_tpu: a lossless codec implementing the zling format.
 
 The zling bitstream format (order-1 ROLZ + two-alphabet canonical Huffman,
-richox/libzling) re-built from scratch for TPU: JAX/XLA/Pallas kernels for the
-array-shaped compute, a native C++ engine for the sequential host runtime, and
-jax.sharding block-data-parallelism for scale-out.
+richox/libzling) re-built from scratch: a native C++ engine for the host
+path, JAX with Pallas kernels for the GPU path, and jax.sharding
+block-data-parallelism across cards.
 
 Public API (mirrors the reference's two-function surface, src/libzling.h:44-45):
 

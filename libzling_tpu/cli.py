@@ -9,7 +9,7 @@ STREAMS: input is consumed in block groups through
 ``utils.io.stream_encode``/``stream_decode`` at O(group) memory, with
 per-16 MB-block progress on stderr (DemoActionHandler analog) -- a file
 larger than RAM round-trips.  Extra flags: ``--backend`` picks
-spec / native / pipeline / jax / tpu / mesh / auto (device backends need the
+spec / native / pipeline / jax / device / mesh / auto (device backends need the
 whole buffer and fall back to one-shot mode); ``--checksum`` prints the
 adler32 of the uncompressed payload, computed incrementally.
 """
@@ -30,7 +30,7 @@ usage: python -m libzling_tpu <command> [source [target]] [--backend B] [--check
               searches producing smaller, still reference-decodable streams)
   d           decompress
  backends: auto (default: streaming block-group pipeline), pipeline, native,
-           spec, jax, tpu, mesh (device backends buffer the whole input)
+           spec, jax, device, mesh (device backends buffer the whole input)
 """
 
 class _Adler32Source(FileSource):
@@ -76,7 +76,7 @@ def _progress_hooks(verb: str) -> CodecHooks:
 
 
 def _run_oneshot(cmd: str, src, dst, backend: str, checksum: bool) -> None:
-    """Whole-buffer path for device backends (jax/tpu/mesh/spec/native)."""
+    """Whole-buffer path for device backends (jax/device/mesh/spec/native)."""
     from . import api
 
     data = src.read()

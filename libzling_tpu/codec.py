@@ -1,191 +1,3 @@
-"""Full-device (JAX) codec pipeline: the "jax" backend.
+"""The "jax" backend: another name for the "device" backend (device.py)."""
 
-Composes the device ops into stream encode/decode with the container
-assembled on host:
-
-  encode:  per block: [device] tokenize chunks (raw literals)
-                      [device] MTF relabel + histograms
-                      [host]   exact length tables (native batch call)
-                      [device] canonical codes + bit-pack
-                      [host]   container framing
-  decode:  [host]   parse container, nibble-unpack length tables
-           [device] batched decode LUTs; segment-parallel Huffman decode
-                    (speculative entries + associative scan, ops/huffman.py)
-           [device] sequential ROLZ resolve per chunk (ops/rolz.py)
-
-This backend is the compatibility/correctness path that runs the whole codec
-on an accelerator and is what the multi-chip dry-run shards; the sequential
-ROLZ stages are `lax.while_loop` scans, so its throughput on large inputs is
-bounded by the scalar loop -- the hybrid pipeline (pipeline.py) is the
-fast path until the Pallas batch-speculative tokenizer lands.
-"""
-
-from __future__ import annotations
-
-import numpy as np
-
-import jax
-import jax.numpy as jnp
-
-from .ops import huffman as hops
-from .ops import mtf as mops
-from .ops import rolz as rops
-from .tables import (
-    BLOCK_SIZE_HUFFMAN,
-    BLOCK_SIZE_IN,
-    BLOCK_SIZE_ROLZ,
-    HUFFMAN_CODES_1,
-    HUFFMAN_CODES_2,
-    HUFFMAN_MAX_LEN_1,
-    HUFFMAN_MAX_LEN_2,
-    LEVEL_PARAMS,
-    SENTINEL_LEN,
-)
-
-MAX_UNITS = BLOCK_SIZE_ROLZ  # units per chunk <= tokens per chunk
-_PAD = SENTINEL_LEN + 64
-
-
-def _round_up(n: int, step: int) -> int:
-    return ((n + step - 1) // step) * step
-
-
-# ---------------------------------------------------------------------------
-# encode
-# ---------------------------------------------------------------------------
-
-
-@jax.jit
-def _relabel_and_hist(r2s, s2r, block, sym, idx, upos, kind, n_units):
-    """MTF-relabel literal units and compute chunk histograms (device)."""
-    u = sym.shape[0]
-    valid = jnp.arange(u) < n_units
-    is_lit = valid & (kind == rops.KIND_LITERAL)
-    lit_ctx = block[jnp.maximum(upos - 1, 0)].astype(jnp.int32)
-    lit_raw = block[upos].astype(jnp.int32)
-    ranks, r2s, s2r = mops.encode_relabel(r2s, s2r, lit_ctx, lit_raw, is_lit)
-    sym2 = jnp.where(is_lit, ranks, sym)
-    freq1, freq2 = hops.unit_histograms(sym2, idx, valid)
-    return sym2, freq1, freq2, r2s, s2r
-
-
-def _exact_lengths(freq: np.ndarray, max_codes: int, max_len: int) -> np.ndarray:
-    try:
-        return hops.exact_length_tables(freq[None], max_len)[0]
-    except Exception:  # native engine unavailable: fall back to the spec
-        from . import spec
-
-        return np.asarray(spec.huffman_length_table(freq.tolist(), max_codes, max_len),
-                          np.uint32)
-
-
-def encode(data: bytes, level: int = 0) -> bytes:
-    if not 0 <= level <= 4:
-        raise ValueError(
-            "the device backend supports levels 0..4 (its chain-walk loop "
-            "bounds are static); use the pipeline backend for e5/e6")
-    if not data:
-        return b""
-    out = bytearray()
-    r2s, s2r = mops.initial_state()
-    out_words = BLOCK_SIZE_HUFFMAN // 4 + 16
-    current_level = level
-    for bstart in range(0, len(data), BLOCK_SIZE_IN):
-        blk = data[bstart: bstart + BLOCK_SIZE_IN]
-        ilen = len(blk)
-        # size the device buffer to the input (bucketed) so small inputs
-        # compile small programs; a full block uses the full 16 MB shape
-        bufsize = min(BLOCK_SIZE_IN + _PAD, _round_up(ilen + _PAD, 1 << 16))
-        block = jnp.asarray(np.frombuffer(blk + bytes(bufsize - ilen), np.uint8))
-        state = rops.enc_state_init()
-        pos = jnp.int32(0)
-        prev_end = 0
-        while int(pos) < ilen:
-            depth, lazy1, lazy2 = LEVEL_PARAMS[current_level]
-            state, sym, idx, upos, kind, n_units, n_tok, pos = rops.tokenize_chunk(
-                state, block, ilen, pos, depth, lazy1, lazy2,
-                jnp.int32(BLOCK_SIZE_ROLZ), MAX_UNITS)
-            sym2, freq1, freq2, r2s, s2r = _relabel_and_hist(
-                r2s, s2r, block, sym, idx, upos, kind, n_units)
-            len1 = _exact_lengths(np.asarray(freq1), HUFFMAN_CODES_1, HUFFMAN_MAX_LEN_1)
-            len2 = _exact_lengths(np.asarray(freq2), HUFFMAN_CODES_2, HUFFMAN_MAX_LEN_2)
-            enc1 = hops.canonical_codes(jnp.asarray(len1), HUFFMAN_MAX_LEN_1)
-            enc2 = hops.canonical_codes(jnp.asarray(len2), HUFFMAN_MAX_LEN_2)
-            valid = jnp.arange(MAX_UNITS) < n_units
-            words, total_bits = hops.pack_units(
-                sym2, idx, valid, jnp.asarray(len1), enc1, jnp.asarray(len2), enc2,
-                out_words)
-            payload = hops.payload_from_words(
-                np.asarray(words), int(total_bits), len1, len2)
-            encpos = int(pos)
-            out.append(1)
-            out.extend(encpos.to_bytes(4, "big"))
-            out.extend(int(n_tok).to_bytes(4, "big"))
-            out.extend(len(payload).to_bytes(4, "big"))
-            out.extend(payload)
-            ratio = len(payload) / (encpos - prev_end + 1)
-            current_level = 0 if ratio > 0.95 else level
-            prev_end = encpos
-        out.append(0)
-    return bytes(out)
-
-
-# ---------------------------------------------------------------------------
-# decode
-# ---------------------------------------------------------------------------
-
-
-def decode(data: bytes) -> bytes:
-    """Entropy decode via the Pallas scalar-core kernel (compiled on TPU,
-    interpreted elsewhere), then the jitted XLA ROLZ resolve.  The fully
-    on-device path (Pallas resolver too) is libzling_tpu.device.decode.
-    """
-    if not data:
-        return b""
-    from . import container
-    from .ops import entropy_kernel as ek
-
-    chunks, _block_sizes = container.parse(data)
-    if not chunks:
-        return b""
-    len1, len2, bodies, rlens = container.unpack_length_tables(chunks)
-    C = len(chunks)
-
-    import jax
-
-    interpret = jax.default_backend() != "tpu"
-    tokens, status = ek.decode_chunks(len1, len2, bodies, rlens,
-                                      interpret=interpret)
-    st = np.asarray(status)
-    if st[:, 0, 2].any() or (st[:, 0, 0] != rlens).any():
-        raise ValueError("zling: corrupt stream (huffman)")
-    tokens_np = np.asarray(tokens)
-
-    # ---- device: sequential ROLZ resolve (MTF carries across blocks)
-    out_parts: list[bytes] = []
-    r2s, _ = mops.initial_state()
-    state = rops.dec_state_init()
-    max_block = max(ch.encpos for ch in chunks)
-    bufsize = min(BLOCK_SIZE_IN + _PAD, _round_up(max_block + _PAD, 1 << 16))
-    outbuf = jnp.zeros(bufsize, jnp.uint8)
-    opos = jnp.int32(0)
-    cur_block = 0
-    tok_scratch = np.zeros(BLOCK_SIZE_ROLZ + 2, np.int32)
-    final_encpos = 0
-    for c, ch in enumerate(chunks):
-        if ch.block_id != cur_block:
-            out_parts.append(bytes(np.asarray(outbuf[:final_encpos])))
-            state = rops.dec_state_init()
-            outbuf = jnp.zeros(bufsize, jnp.uint8)
-            opos = jnp.int32(0)
-            cur_block = ch.block_id
-        tok_scratch[:ch.rlen] = tokens_np[c, :ch.rlen]
-        tok_scratch[ch.rlen:] = 0
-        state, r2s, outbuf, opos, ok = rops.resolve_chunk(
-            state, r2s, jnp.asarray(tok_scratch), jnp.int32(ch.rlen), outbuf,
-            opos, jnp.int32(ch.encpos), outbuf.shape[0])
-        if not bool(ok):
-            raise ValueError("zling: corrupt stream (resolve)")
-        final_encpos = ch.encpos
-    out_parts.append(bytes(np.asarray(outbuf[:final_encpos])))
-    return b"".join(out_parts)
+from .device import decode, encode  # noqa: F401

@@ -6,10 +6,10 @@
 // normative format spec and /root/repo/libzling_tpu/spec.py for the readable
 // executable specification this file mirrors).
 //
-// This is the host-side runtime of the TPU framework: it handles the
-// sequential state-machine stages (ROLZ tokenize/resolve, MTF) that do not
-// map onto the TPU's vector units, while the JAX/Pallas path accelerates the
-// array-shaped stages.  Exposed as a C ABI consumed via ctypes.
+// This is the host-side runtime: it runs the sequential state-machine
+// stages (ROLZ tokenize/resolve, MTF) at native speed on CPU cores, while
+// the JAX path runs the codec on the GPU.  Exposed as a C ABI consumed via
+// ctypes.
 //
 // Layout of the file:
 //   1. format tables (generated at startup, same recipe as tables.py)

@@ -1,4 +1,4 @@
-"""Device-side Huffman stage: canonical tables, bit-packing, parallel decode.
+"""Device-side Huffman stage: canonical tables, histograms, bit-packing.
 
 The reference interleaves Huffman coding with scalar loops in its driver
 (src/libzling.cpp:210-257 encode, :336-402 decode).  Here the stage is
@@ -7,15 +7,9 @@ re-formulated as array programs:
 * canonical code assignment and decode-LUT construction are vectorized and
   batched over chunks (each chunk has its own pair of tables);
 * the encoder packs all symbols at once: per-unit bit patterns, an exclusive
-  scan for bit offsets, and two scatter-ORs into the output words;
-* the decoder uses segment-parallel self-synchronizing decoding: every
-  512-byte segment is decoded speculatively from all 32 possible entry-bit
-  offsets (a code unit spans at most 31 bits), the per-segment
-  entry->exit maps are composed with an associative scan, and a final pass
-  re-decodes each segment once from its now-known entry offset, writing
-  tokens at scan-derived positions.  This turns the bit-serial stream into
-  ~#segments * 32 independent vector lanes (cf. PAPERS.md GPU-Huffman
-  references for the pattern family).
+  scan for bit offsets, and two scatter-ORs into the output words.
+
+Decoding is bit-serial per chunk and runs in ops/entropy_kernel.py.
 
 Exact code-length construction (heap tie-breaking, reference
 src/libzling_huffman.cpp:41-112) stays on the host: see
@@ -215,9 +209,8 @@ def pack_units(sym, idx, valid, len1, enc1, len2, enc2, out_words: int):
     Returns (words [out_words] uint32, total_bits scalar).
     """
     sym = sym.astype(jnp.int32)
-    # gathers are the measured wall on this part (~0.11 G elem/s flat,
-    # DESIGN.md section 2b addendum): combine the per-unit lookups into TWO
-    # unit-sized gathers -- a packed (code | len<<16) alphabet-1 table, and
+    # combine the per-unit lookups into TWO unit-sized gathers -- a packed
+    # (code | len<<16) alphabet-1 table, and
     # a per-idx table that precomputes the ENTIRE match-index tail
     # (idxcode | extra_bits << len2) plus its bit count for all 4096 index
     # values (the small 4096/32-entry builder gathers are noise)

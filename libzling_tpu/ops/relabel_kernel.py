@@ -1,26 +1,19 @@
-"""Pallas TPU kernel: sticky-MTF literal relabel over a tokenized block.
+"""Pallas kernel (Triton route): sticky-MTF literal relabel.
 
 The reference applies MTF inline per literal (src/libzling_lz.cpp:112-117,
-188); the framework tokenizes with RAW literal bytes and relabels as a
-separate pass (SURVEY.md section 7.0 phase b).  The XLA formulation
-(ops/mtf.py encode_relabel: stable-sort by context + a lockstep scan) is
-fine on CPU but catastrophic on this TPU: the scan runs max-per-ctx-run
-iterations with in-loop scatters, measured ~98 us/iteration -> ~51 s per
-canonical 16 MB block (tools/ probe, round 3).  The MTF chain is a
-byte-granular state machine, i.e. exactly what the scalar core + SMEM do
-well: this kernel walks the unit stream once, ~15 cycles per unit plus ~30
-per literal, ~0.2 s per 16 MB block.
+188); the codec tokenizes with RAW literal bytes and relabels afterwards
+(SURVEY.md section 7.0 phase b).  The 256 context chains are independent:
+the literals are stably sorted by context (XLA, ``sort_literals``), then one
+program walks all 256 runs in lockstep, one lane per context.  Each step
+relabels the k-th literal of every context with four gathers and four
+scatters into the [256, 256] rank<->symbol tables; a lane only touches its
+own context's rows, so the step count is the longest run, not the number of
+literals.
 
-I/O convention: the packed unit words produced by ops/tokenize_kernel.py
-(sym | kind << 10 | (midx or literal-ctx) << 14, one chunk per
-chunk_stride slot).  Literal units (kind 1) get their sym field replaced by
-the MTF rank; everything else is copied through.  The 2x[256,256] MTF state
-is carried packed 4-bytes-per-word (pack_state/unpack_state) so it rides in
-one [1, 32768] array -- small enough to ppermute around the mesh ring
-(parallel/mesh.py chain) and to DMA into SMEM here.
+The tables are plain [256, 256] i32 arrays: small enough to carry between
+blocks and around the mesh ring (parallel/mesh.py ppermute chain).
 
-Bit-exactness oracle: ops/mtf.py encode_relabel_reference
-(tests/test_relabel_kernel.py).
+Oracle: ``mtf.encode_relabel_reference`` (tests/test_relabel_kernel.py).
 """
 
 from __future__ import annotations
@@ -31,188 +24,87 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
+from . import route
 from ..tables import MTF_NEXT
 
-STATE_WORDS = 2 * 256 * 64    # r2s plane + s2r plane, 4 bytes per word
-OSLAB = 512
+
+def _relabel_kernel(raw_ref, start_ref, len_ref, maxrun_ref, nxt_ref,
+                    _r2s_in, _s2r_in, ranks_ref, r2s_ref, s2r_ref, *,
+                    interpret: bool):
+    row = jax.lax.broadcasted_iota(jnp.int32, (256,), 0) * 256
+    run_start = start_ref[pl.ds(0, 256)]
+    run_len = len_ref[pl.ds(0, 256)]
+
+    def step(k, carry):
+        active = k < run_len
+        pos = run_start + k
+        sym = pltriton.load(raw_ref.at[pos], mask=active, other=0)
+        i = s2r_ref[row + sym]
+        j = nxt_ref[i]
+        other = r2s_ref[row + j]
+        pltriton.store(r2s_ref.at[row + i], other, mask=active)
+        pltriton.store(r2s_ref.at[row + j], sym, mask=active)
+        pltriton.store(s2r_ref.at[row + sym], j, mask=active)
+        pltriton.store(s2r_ref.at[row + other], i, mask=active)
+        pltriton.store(ranks_ref.at[pos], i, mask=active)
+        route.barrier(interpret)
+        return carry
+
+    max_run = maxrun_ref[0]
+    jax.lax.fori_loop(0, max_run, step, max_run)
 
 
-def _srl(x, n):
-    return jax.lax.shift_right_logical(x, n)
+def sort_literals(lit_ctx, lit_raw, lit_valid):
+    """Stable sort of the literals by context (traced).
+
+    Returns (order, raw bytes in sorted order, run start [256], run length
+    [256], longest run [1])."""
+    key = jnp.where(lit_valid, lit_ctx.astype(jnp.int32), 256)
+    order = jnp.argsort(key, stable=True)
+    run_len = jnp.zeros(257, jnp.int32).at[key].add(1)[:256]
+    run_start = jnp.cumsum(run_len) - run_len
+    return (order, lit_raw.astype(jnp.int32)[order], run_start, run_len,
+            jnp.max(run_len)[None])
 
 
-def pack_state(r2s, s2r):
-    """[256,256] i32 x2 -> [1, STATE_WORDS] i32 (byte-per-entry, 4/word)."""
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def relabel_sorted(r2s, s2r, raw_s, run_start, run_len, max_run, *,
+                   interpret: bool):
+    """Relabel sorted literals; returns (ranks in sorted order, r2s', s2r').
 
-    def p(t):
-        t = t.astype(jnp.int32).reshape(256, 64, 4)
-        return (t[..., 0] | (t[..., 1] << 8) | (t[..., 2] << 16)
-                | (t[..., 3] << 24)).reshape(-1)
-
-    return jnp.concatenate([p(r2s), p(s2r)])[None]
-
-
-def unpack_state(st):
-    """Inverse of pack_state."""
-    st = st.reshape(2, 256, 64)
-
-    def u(t):
-        b = jnp.stack([t & 255, _srl(t, 8) & 255, _srl(t, 16) & 255,
-                       _srl(t, 24) & 255], -1)
-        return b.reshape(256, 256)
-
-    return u(st[0]), u(st[1])
-
-
-def _relabel_kernel(meta_ref, a_hbm, state_hbm, nxt_ref,
-                    aout_hbm, stout_hbm,
-                    st_ref, islab_ref, oslab_ref,
-                    sem_st, sem_i, sem_o,
-                    *, chunk_stride: int, max_chunks: int, islab: int):
-    cp = pltpu.make_async_copy(state_hbm, st_ref, sem_st)
-    cp.start()
-    cp.wait()
-
-    S2R = 256 * 64  # word offset of the s2r plane
-
-    def pget(base, idx):
-        w = st_ref[0, base + _srl(idx, 2)]
-        return _srl(w, (idx & 3) * 8) & 255
-
-    def pput(base, idx, val):
-        wi = base + _srl(idx, 2)
-        sh = (idx & 3) * 8
-        w = st_ref[0, wi]
-        st_ref[0, wi] = (w & ~(255 << sh)) | (val << sh)
-
-    def chunk_body(c, _):
-        nu = meta_ref[0, c]
-        cbase = c * chunk_stride
-
-        def load_islab(src):
-            cp = pltpu.make_async_copy(
-                a_hbm.at[0, pl.ds(pl.multiple_of(cbase + src, 128), islab)],
-                islab_ref.at[0, :], sem_i)
-            cp.start()
-            cp.wait()
-
-        def flush_oslab(dst):
-            cp = pltpu.make_async_copy(
-                oslab_ref.at[0, :],
-                aout_hbm.at[0, pl.ds(pl.multiple_of(cbase + dst, 128),
-                                     OSLAB)], sem_o)
-            cp.start()
-            cp.wait()
-
-        @pl.when(nu > 0)
-        def _():
-            load_islab(0)
-
-        def ubody(carry):
-            u, ioff = carry
-            need = u - ioff >= islab
-            nioff = jnp.minimum((u >> 7) << 7, chunk_stride - islab)
-
-            @pl.when(need)
-            def _():
-                load_islab(nioff)
-
-            ioff = jnp.where(need, nioff, ioff)
-            w = islab_ref[0, u - ioff]
-
-            @pl.when(((w >> 10) & 3) == 1)
-            def _():
-                sym = w & 255
-                ctx = _srl(w, 14) & 255
-                i = pget(S2R, ctx * 256 + sym)
-                j = nxt_ref[0, i]
-                other = pget(0, ctx * 256 + j)
-                pput(0, ctx * 256 + i, other)
-                pput(0, ctx * 256 + j, sym)
-                pput(S2R, ctx * 256 + sym, j)
-                pput(S2R, ctx * 256 + other, i)
-                oslab_ref[0, u & (OSLAB - 1)] = (w & ~1023) | i
-
-            @pl.when(((w >> 10) & 3) != 1)
-            def _():
-                oslab_ref[0, u & (OSLAB - 1)] = w
-
-            do_flush = (u & (OSLAB - 1)) == OSLAB - 1
-
-            @pl.when(do_flush)
-            def _():
-                flush_oslab(u - (OSLAB - 1))
-
-            return u + 1, ioff
-
-        u, _ioff = jax.lax.while_loop(lambda cr: cr[0] < nu, ubody,
-                                      (jnp.int32(0), jnp.int32(0)))
-
-        # tail flush: one full slab from the last boundary (the overshoot
-        # stays inside this chunk's stride slot; consumers mask by nunits)
-        @pl.when((u & (OSLAB - 1)) != 0)
-        def _():
-            flush_oslab((u >> 9) << 9)
-
-        return 0
-
-    jax.lax.fori_loop(0, max_chunks, chunk_body, 0)
-
-    cp = pltpu.make_async_copy(st_ref, stout_hbm, sem_st)
-    cp.start()
-    cp.wait()
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "chunk_stride",
-                                             "max_chunks"))
-def _relabel_call(meta, a_flat, state, interpret: bool = False,
-                  chunk_stride: int = 0, max_chunks: int = 0):
-    islab = min(2048, chunk_stride)
-    nxt = jnp.asarray(np.asarray(MTF_NEXT, np.int32)[None])
-    kernel = pl.pallas_call(
-        functools.partial(_relabel_kernel, chunk_stride=chunk_stride,
-                          max_chunks=max_chunks, islab=islab),
-        grid=(1,),
-        in_specs=[
-            pl.BlockSpec((1, 256), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((1, 256), lambda i: (0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, max_chunks * chunk_stride), jnp.int32),
-            jax.ShapeDtypeStruct((1, STATE_WORDS), jnp.int32),
-        ),
-        scratch_shapes=[
-            pltpu.SMEM((1, STATE_WORDS), jnp.int32),
-            pltpu.SMEM((1, islab), jnp.int32),
-            pltpu.SMEM((1, OSLAB), jnp.int32),
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA,
-        ],
+    r2s/s2r: [256, 256] i32 rank->symbol and symbol->rank tables."""
+    L = raw_s.shape[0]
+    i32 = jnp.int32
+    ranks, r2s, s2r = route.pallas_call(
+        functools.partial(_relabel_kernel, interpret=interpret),
         interpret=interpret,
-    )
-    return kernel(meta, a_flat, state, nxt)
+        out_shape=(jax.ShapeDtypeStruct((L,), i32),
+                   jax.ShapeDtypeStruct((65536,), i32),
+                   jax.ShapeDtypeStruct((65536,), i32)),
+        input_output_aliases={5: 1, 6: 2},
+        name="zling_mtf_relabel",
+    )(raw_s, run_start, run_len, max_run,
+      jnp.asarray(np.asarray(MTF_NEXT, np.int32)),
+      r2s.reshape(-1).astype(i32), s2r.reshape(-1).astype(i32))
+    return ranks, r2s.reshape(256, 256), s2r.reshape(256, 256)
 
 
-def relabel_block(a_flat, nunits, r2s, s2r, *, chunk_stride: int,
-                  max_chunks: int, interpret: bool = False):
-    """Relabel literal units in packed form (traced; jit/shard_map safe).
+def unsort(order, ranks_s, lit_valid):
+    """Sorted-order ranks back to stream order (0 where not a literal)."""
+    ranks = jnp.zeros_like(ranks_s).at[order].set(ranks_s)
+    return jnp.where(lit_valid, ranks, 0)
 
-    a_flat [1, max_chunks*chunk_stride] packed units; nunits [max_chunks].
-    Returns (a_flat', r2s', s2r').
-    """
-    meta = jnp.zeros((1, 256), jnp.int32).at[0, :max_chunks].set(
-        nunits.astype(jnp.int32))
-    st = pack_state(r2s, s2r)
-    a2, st2 = _relabel_call(meta, a_flat, st, interpret=interpret,
-                            chunk_stride=chunk_stride, max_chunks=max_chunks)
-    r2s2, s2r2 = unpack_state(st2)
-    return a2, r2s2, s2r2
+
+def encode_relabel(r2s, s2r, lit_ctx, lit_raw, lit_valid, *, interpret: bool):
+    """Relabel raw literal bytes to MTF ranks, in stream order.
+
+    Mirrors ZlingMTFEncoder::Encode (src/libzling_lz.cpp:112-117) per
+    context: i = rank(c); swap ranks i and MTF_NEXT[i].  Returns
+    (ranks, r2s', s2r')."""
+    order, raw_s, start, length, max_run = sort_literals(lit_ctx, lit_raw,
+                                                          lit_valid)
+    ranks_s, r2s, s2r = relabel_sorted(r2s, s2r, raw_s, start, length,
+                                       max_run, interpret=interpret)
+    return unsort(order, ranks_s, lit_valid), r2s, s2r

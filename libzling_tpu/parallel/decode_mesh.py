@@ -13,15 +13,15 @@ the parallel stage and pipelines the serial one:
                     reassembled token stream
 
 The stream is processed in GROUPS of whole blocks.  The resolve kernel
-exports its exit MTF state (the only state crossing a block boundary; ring
+exports its exit MTF table (the only state crossing a block boundary; ring
 and heads reset at block starts, the word-MRU per chunk), which feeds the
 next group's resolve as a device-resident carry -- so the host dispatch
 loop can enqueue group g+1's sharded entropy work while group g's resolve
-chain is still executing (jax async dispatch; the devices genuinely overlap
-on real multi-chip parts).  All status/byte fetches happen once at the end.
+chain is still executing (jax async dispatch).  All status and byte
+fetches happen once at the end.
 
 Geometry is padded to uniform shapes (chunks per device, payload words,
-output rows) so every group reuses the same compiled executables.
+output bytes) so every group reuses the same compiled executables.
 """
 
 from __future__ import annotations
@@ -37,61 +37,49 @@ from jax.sharding import Mesh, PartitionSpec as P
 from .. import container
 from ..ops import entropy_kernel as ek
 from ..ops import resolve_kernel as rk
+from ..ops import route
 from .mesh import AXIS, host_gather, make_mesh, shard_put
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "mesh", "interpret", "slab_words", "flush_tokens", "max_tokens"))
+@functools.partial(jax.jit, static_argnames=("mesh", "interpret",
+                                             "max_tokens"))
 def _entropy_step(len1, len2, n_words, word_base, rlens, words, *,
-                  mesh: Mesh, interpret: bool, slab_words: int,
-                  flush_tokens: int, max_tokens: int):
+                  mesh: Mesh, interpret: bool, max_tokens: int):
     """Sharded entropy decode: each device builds decode tables for and
     decodes its contiguous chunk range; the flat payload-word array is
-    replicated (it is ~the compressed size)."""
+    replicated (it is about the compressed size)."""
 
     def step(len1, len2, n_words, word_base, rlens, words):
-        # locals are the contiguous per-device chunk slice [cd, ...]
         meta, order1, lut1, lut2 = ek.build_chunk_tables(
             len1, len2, n_words, word_base, rlens)
-        tokens, status = ek._decode_call(
-            meta, order1, lut1, lut2, words,
-            interpret=interpret, slab_words=slab_words,
-            flush_tokens=flush_tokens, max_tokens=max_tokens)
-        return tokens.reshape(1, -1), status[None]
+        tokens, status = ek.decode_tables(meta, order1, lut1, lut2, words,
+                                          interpret=interpret,
+                                          max_tokens=max_tokens)
+        return tokens, status
 
     return jax.shard_map(
         step, mesh=mesh, check_vma=False,
         in_specs=(P(AXIS, None), P(AXIS, None), P(AXIS),
-                  P(AXIS), P(AXIS), P(None, None)),
-        out_specs=(P(AXIS, None), P(AXIS, None, None, None)),
+                  P(AXIS), P(AXIS), P(None)),
+        out_specs=(P(AXIS, None), P(AXIS, None)),
     )(len1, len2, n_words, word_base, rlens, words)
 
 
 def mesh_decode(data: bytes, mesh: Mesh | None = None,
                 group_blocks: int = 1,
-                slab_words: int = ek.SLAB_WORDS,
-                flush_tokens: int = ek.FLUSH_TOKENS,
-                max_tokens: int = ek.MAX_TOKENS,
-                slab_tokens: int = rk.SLAB_TOKENS,
-                stage_probe: dict | None = None) -> bytes:
+                max_tokens: int = ek.MAX_TOKENS) -> bytes:
     """Decode a zling stream with entropy decode sharded over the mesh.
 
-    Bit-exact with ``spec.decode``; corrupt streams raise ValueError with
-    the same strictness as the single-device tpu backend (device.py).
-
-    stage_probe: optional dict that receives per-stage wall times
-    ("entropy_s", "gather_s", "resolve_s") with a forced status fetch after
-    each stage -- this serializes the group pipeline, so it is a
-    measurement mode, not the production path (bench tooling / DESIGN's
-    serial-fraction model).
+    Bit-exact with ``spec.decode``; corrupt streams raise ValueError.  On a
+    one-device mesh this is the "device" backend's decode (device.py).
     """
-    import time
     if not data:
         return b""
     if mesh is None:
         mesh = make_mesh()
     D = mesh.devices.size
-    interpret = mesh.devices.flat[0].platform != "tpu"
+    interpret = route.interpret_mode(mesh.devices.flat[0])
+    route.init_compile_cache()
     dev0 = mesh.devices.flat[0]
     # multi-process (jax.distributed): device 0 of the mesh may not be
     # addressable from this process, so the token reassembly and the serial
@@ -107,8 +95,9 @@ def mesh_decode(data: bytes, mesh: Mesh | None = None,
         return b""
     len1, len2, bodies, rlens = container.unpack_length_tables(chunks)
     rlens = np.asarray(rlens, np.int32)
+    if int(rlens.max()) > max_tokens:
+        raise ValueError("zling: corrupt stream (chunk token count)")
     C = len(chunks)
-    out_tokens = max_tokens + 2 * flush_tokens
 
     # ---- group structure: GROUP = group_blocks consecutive input blocks
     n_blocks = len(block_sizes)
@@ -120,35 +109,25 @@ def mesh_decode(data: bytes, mesh: Mesh | None = None,
         groups.append((idx[0], idx[-1] + 1) if idx else (0, 0))
 
     # uniform geometry across groups (stable jit shapes)
-    burst = rk.FLUSH_ROWS * 128
     cd = max(1, max(-(-(c1 - c0) // D) for c0, c1 in groups))
-    cd += cd % 2  # the entropy kernel decodes chunk pairs
     Cp = D * cd
-    w_need = max(
-        sum((len(bodies[i]) + 511) // 512 * 512 + 512
-            for i in range(c0, c1)) // 4 + slab_words
-        for c0, c1 in groups if c1 > c0)
-    W = -(-w_need // slab_words) * slab_words
-    rows_of = [((s + burst - 1) // burst + 1) * rk.FLUSH_ROWS
-               for s in block_sizes]
-    out_rows = max(
-        sum(rows_of[b0:min(b0 + group_blocks, n_blocks)]) + rk.FLUSH_ROWS
-        for b0 in range(0, n_blocks, group_blocks))
-    out_words = out_rows * 128
+    W = max(len(ek.pack_payload_words(bodies[c0:c1])[0])
+            for c0, c1 in groups if c1 > c0)
+    layouts = [rk.block_layout(block_sizes[b0:b0 + group_blocks])
+               for b0 in range(0, n_blocks, group_blocks)]
+    out_bytes = max(n for _, n in layouts)
 
     if multiproc:
         mtf = shard_put(rk.initial_mtf_state(), mesh, P())
         # one jitted all-gather reused across every group (uniform shapes
         # by construction -- a per-group lambda would retrace each time)
-        gather_tokens = jax.jit(lambda x: x.reshape(1, Cp * out_tokens),
-                                out_shardings=replicated)
+        gather_tokens = jax.jit(lambda x: x, out_shardings=replicated)
     else:
         mtf = jax.device_put(jnp.asarray(rk.initial_mtf_state()), dev0)
 
-    fetched: list[tuple] = []  # (packed, rstatus, estatus, block meta)
+    fetched: list[tuple | None] = []
     for g, (c0, c1) in enumerate(groups):
         b0 = g * group_blocks
-        b1 = min(b0 + group_blocks, n_blocks)
         cg = c1 - c0
         if cg == 0:
             fetched.append(None)
@@ -163,55 +142,37 @@ def mesh_decode(data: bytes, mesh: Mesh | None = None,
         l2[cg:] = len2[c0]
         rl = np.zeros(Cp, np.int32)
         rl[:cg] = rlens[c0:c1]
-        words, wb_g, nw_g = ek.pack_payload_words(
-            bodies[c0:c1], slab_words, total_words=W)
+        words, wb_g, nw_g = ek.pack_payload_words(bodies[c0:c1],
+                                                  total_words=W)
         wb = np.zeros(Cp, np.int32)
         nw = np.full(Cp, 2, np.int32)
         wb[:cg] = wb_g
         nw[:cg] = nw_g
 
-        t0 = time.perf_counter()
         tokens, estatus = _entropy_step(
             shard_put(l1, mesh, P(AXIS, None)),
             shard_put(l2, mesh, P(AXIS, None)),
             shard_put(nw, mesh, P(AXIS)),
             shard_put(wb, mesh, P(AXIS)),
             shard_put(rl, mesh, P(AXIS)),
-            shard_put(words[None, :], mesh, P(None, None)),
-            mesh=mesh, interpret=interpret, slab_words=slab_words,
-            flush_tokens=flush_tokens, max_tokens=max_tokens)
-        if stage_probe is not None:
-            # forced fetch (block_until_ready does not sync on this
-            # platform); host_gather handles the cross-process sharding
-            host_gather(estatus)
-            stage_probe["entropy_s"] = stage_probe.get("entropy_s", 0.) \
-                + time.perf_counter() - t0
-            t0 = time.perf_counter()
+            shard_put(words, mesh, P(None)),
+            mesh=mesh, interpret=interpret, max_tokens=max_tokens)
 
-        # ---- reassemble on device 0 (ICI gather on real parts) and run
-        # the serial resolve chain there; MTF carries group to group.
-        # On a 1-device mesh the tokens already live on dev0 and the
-        # device_put is a measured ~0.5 s/group round-trip -- skip it.
+        # ---- reassemble on device 0 and run the serial resolve chain
+        # there; the MTF table carries group to group
         if multiproc:
-            # all-gather to replicated: an XLA collective (rides ICI/DCN),
-            # legal from every process -- unlike a cross-process device_put
+            # all-gather to replicated: an XLA collective, legal from every
+            # process -- unlike a cross-process device_put
             tokens0 = gather_tokens(tokens)
         elif D == 1:
-            tokens0 = tokens.reshape(1, Cp * out_tokens)
+            tokens0 = tokens
         else:
-            tokens0 = jax.device_put(tokens, dev0).reshape(1, Cp * out_tokens)
-        if stage_probe is not None:
-            # forced fetch: this platform's block_until_ready does not
-            # synchronize (DESIGN.md ledger item 7)
-            np.asarray(jax.device_get(tokens0.ravel()[:1]))
-            stage_probe["gather_s"] = stage_probe.get("gather_s", 0.) \
-                + time.perf_counter() - t0
-            t0 = time.perf_counter()
+            tokens0 = jax.device_put(tokens, dev0)
 
-        base_rows = np.cumsum([0] + rows_of[b0:b1])[:-1]
+        bases, _ = layouts[g]
         encpos = np.zeros(Cp, np.int32)
         new_block = np.zeros(Cp, np.int32)
-        hbm_base = np.zeros(Cp, np.int32)
+        out_base = np.zeros(Cp, np.int32)
         prev_bid = -1
         for k in range(cg):
             ch = chunks[c0 + k]
@@ -219,45 +180,36 @@ def mesh_decode(data: bytes, mesh: Mesh | None = None,
             if ch.block_id != prev_bid:
                 new_block[k] = 1
                 prev_bid = ch.block_id
-            hbm_base[k] = base_rows[ch.block_id - b0]
+            out_base[k] = bases[ch.block_id - b0]
         encpos[cg:] = encpos[cg - 1]  # dummies: no-op chunks of the
-        hbm_base[cg:] = hbm_base[cg - 1]  # last real block
+        out_base[cg:] = out_base[cg - 1]  # last real block
 
-        packed, rstatus, mtf = rk.resolve_stream(
-            tokens0, rl, encpos, new_block, hbm_base,
-            out_tokens, out_words, interpret=interpret,
-            slab_tokens=slab_tokens, mtf0=mtf)
-        if stage_probe is not None:
-            # forced fetch; under multi-process rstatus is replicated --
-            # read the local replica
-            np.asarray(rstatus.addressable_data(0) if multiproc else rstatus)
-            stage_probe["resolve_s"] = stage_probe.get("resolve_s", 0.) \
-                + time.perf_counter() - t0
-        fetched.append((packed, rstatus, estatus, b0, b1, base_rows, cg,
-                        rl.copy()))
+        out, rstatus, mtf = rk.resolve_stream(
+            tokens0, rl, encpos, new_block, out_base, out_bytes,
+            interpret=interpret, mtf0=mtf)
+        fetched.append((out, rstatus, estatus, b0, cg, rl))
         # no host sync here: group g+1's entropy dispatches while group
-        # g's resolve chain executes (measured overlap: DESIGN.md)
+        # g's resolve chain executes
 
     # ---- one sync point: validate statuses, slice block bytes
     parts: list[bytes] = []
     for item in fetched:
         if item is None:
             continue
-        packed, rstatus, estatus, b0, b1, base_rows, cg, rl = item
+        out, rstatus, estatus, b0, cg, rl = item
         if multiproc:
-            # estatus is block-sharded (host_gather assembles it); packed /
+            # estatus is chunk-sharded (host_gather assembles it); out and
             # rstatus are replicated -- every process reads its local replica
             estatus = host_gather(estatus)
             rstatus = rstatus.addressable_data(0)
-            packed = packed.addressable_data(0)
-        est = np.asarray(estatus).reshape(Cp, 8, 128)[:cg, 0, :]
+            out = out.addressable_data(0)
+        est = np.asarray(estatus)[:cg]
         if est[:, 2].any() or (est[:, 0] != rl[:cg]).any():
             raise ValueError("zling: corrupt stream (huffman)")
-        rst = np.asarray(rstatus)[:cg, 0, :]
-        if rst[:, 2].any():
+        if np.asarray(rstatus)[:cg, 2].any():
             raise ValueError("zling: corrupt stream (resolve)")
-        raw = np.ascontiguousarray(np.asarray(packed)).view(np.uint8)
-        for j, bid in enumerate(range(b0, b1)):
-            base = int(base_rows[j]) * 128
-            parts.append(raw[base: base + block_sizes[bid]].tobytes())
+        raw = np.asarray(out)
+        bases, _ = layouts[b0 // group_blocks]
+        for j, base in enumerate(bases):
+            parts.append(raw[base: base + block_sizes[b0 + j]].tobytes())
     return b"".join(parts)

@@ -2,8 +2,8 @@
 
 The reference is single-process (SURVEY.md section 2: no threads, no MPI);
 the framework's distributed equivalent is SPMD over jax.distributed — the
-block axis spans every device in the job, collectives ride ICI within a
-slice and DCN across hosts. ``mesh_encode`` itself is multi-process safe
+block axis spans every device in the job, collectives ride NVLink within a
+host and the network across hosts. ``mesh_encode`` itself is multi-process safe
 (mesh.shard_put places host-replicated inputs shard-wise;
 mesh.host_gather assembles results with process_allgather), so this module
 is the thin process-lifecycle layer around it:
@@ -60,7 +60,6 @@ def global_block_mesh():
 def distributed_encode(data: bytes, level: int,
                        block_size: int = pmesh.BLOCK_SIZE_IN,
                        max_tokens: int = pmesh.BLOCK_SIZE_ROLZ,
-                       tokenizer: str = "xla",
                        elastic: bool = False) -> bytes:
     """SPMD canonical encode with blocks sharded over all hosts' devices.
 
@@ -74,8 +73,7 @@ def distributed_encode(data: bytes, level: int,
     """
     mesh = global_block_mesh()
     return pmesh.mesh_encode(data, level, mesh=mesh, block_size=block_size,
-                             max_tokens=max_tokens, tokenizer=tokenizer,
-                             elastic=elastic)
+                             max_tokens=max_tokens, elastic=elastic)
 
 
 def distributed_decode(data: bytes, **kwargs) -> bytes:

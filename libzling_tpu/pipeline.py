@@ -4,7 +4,7 @@ The format's only large-grain parallel axis is the 16 MB block (SURVEY.md
 section 2): ROLZ bucket state resets per block, so tokenization is
 block-independent -- provided literals are emitted raw, because the MTF
 tables are the one piece of state that crosses blocks.  This module runs the
-codec as the three-phase pipeline the TPU design uses (SURVEY.md section 7.0):
+codec as the three-phase pipeline of SURVEY.md section 7.0:
 
   encode:  [parallel] tokenize blocks (raw literals)
            [serial]   MTF relabel carry pass  (cheap: one table op per literal)

@@ -21,19 +21,19 @@ os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
-# persistent compile cache: the 2x4-device shard_map compile dominates this
-# worker's runtime on the 2-vCPU host; cached, the whole test is seconds
-jax.config.update("jax_compilation_cache_dir",
-                  str(pathlib.Path(__file__).resolve().parent.parent
-                      / "build" / "jaxcache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import numpy as np  # noqa: E402
 
 from libzling_tpu import spec  # noqa: E402
+from libzling_tpu.ops import route  # noqa: E402
 from libzling_tpu.parallel import distributed as dist  # noqa: E402
+
+route.allow_cpu_interpret()
+# the 2x4-device shard_map compile dominates this worker's runtime;
+# cached, the whole test is seconds
+route.init_compile_cache()
 
 assert dist.init_distributed(coordinator, num_procs, proc_id)
 
@@ -54,9 +54,7 @@ assert spec.decode(stream) == data
 
 # decode direction: entropy sharded over both processes' devices, resolve
 # replicated -- every process must reconstruct the identical input bytes
-out = dist.distributed_decode(stream, group_blocks=2, max_tokens=1024,
-                              flush_tokens=512, slab_words=512,
-                              slab_tokens=512)
+out = dist.distributed_decode(stream, group_blocks=2, max_tokens=1024)
 assert out == data, f"proc {proc_id}: distributed decode mismatch"
 
 pathlib.Path(outfile).write_bytes(stream)

@@ -131,7 +131,7 @@ def test_streams_by_default_honors_env_override(monkeypatch):
     monkeypatch.delenv("LIBZLING_TPU_BACKEND", raising=False)
     assert api.streams_by_default("auto")
     assert api.streams_by_default("pipeline")
-    assert not api.streams_by_default("tpu")
+    assert not api.streams_by_default("device")
     monkeypatch.setenv("LIBZLING_TPU_BACKEND", "spec")
     assert not api.streams_by_default("auto")
     monkeypatch.setenv("LIBZLING_TPU_BACKEND", "pipeline")

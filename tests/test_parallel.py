@@ -108,7 +108,7 @@ def test_graft_dryrun_multichip():
 
 @pytest.mark.slow
 @pytest.mark.skipif(not os.environ.get("ZLT_FULL_DRYRUN"),
-                    reason="~16 min on 2 vCPUs; run with ZLT_FULL_DRYRUN=1")
+                    reason="many minutes on the CPU; run with ZLT_FULL_DRYRUN=1")
 def test_graft_dryrun_multichip_full_geometry():
     # the 64 KB-block geometry the driver gate doesn't run (advisor round 4):
     # the opt-in registered entry point for the larger-lane coverage
@@ -132,8 +132,7 @@ def test_mesh_decode_multidevice():
             + bytes(rng.integers(0, 256, 1500, dtype=np.uint8))) * 2
     stream = spec.encode(data, level=1, block_size=2048, max_tokens=500)
     mesh = pmesh.make_mesh(np.asarray(jax.devices()[:8]))
-    small = dict(max_tokens=512, flush_tokens=512, slab_words=512,
-                 slab_tokens=512)
+    small = dict(max_tokens=512)
     for gb in (1, 3):
         out = decode_mesh.mesh_decode(stream, mesh=mesh, group_blocks=gb,
                                       **small)

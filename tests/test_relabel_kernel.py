@@ -1,4 +1,4 @@
-"""Golden tests for the Pallas MTF relabel kernel (interpreter mode).
+"""Golden tests for the MTF relabel kernel (interpret mode on the CPU).
 
 Oracle: ops/mtf.py encode_relabel_reference (the sequential NumPy port of
 ZlingMTFEncoder, src/libzling_lz.cpp:112-117).
@@ -14,80 +14,54 @@ from libzling_tpu.ops import mtf as mops
 from libzling_tpu.ops import relabel_kernel as rlk
 
 
-def _pack_units(rng, max_chunks, chunk_units, nunits):
-    """Random packed unit words in the tokenizer's convention."""
-    chunk_stride = ((chunk_units + 511) // 512 + 1) * 512
-    a = np.zeros((max_chunks, chunk_stride), np.int32)
-    lits = []  # (ctx, raw) in stream order
-    for c in range(max_chunks):
-        for u in range(nunits[c]):
-            kind = rng.choice([0, 1, 1, 1, 2, 3])
-            if kind == 1:
-                ctx = int(rng.integers(0, 256))
-                raw = int(rng.integers(0, 256))
-                a[c, u] = raw | (1 << 10) | (ctx << 14)
-                lits.append((ctx, raw))
-            elif kind == 3:
-                a[c, u] = int(rng.integers(258, 514)) | (3 << 10) \
-                    | (int(rng.integers(1, 4096)) << 14)
-            else:
-                a[c, u] = int(rng.integers(0, 256)) | (kind << 10)
-    return a.reshape(1, -1), chunk_stride, lits
+def _literals(rng, n, hot_frac=0.5):
+    ctx = rng.integers(0, 256, n).astype(np.int32)
+    ctx[rng.random(n) < hot_frac] = 32   # skew contexts like text
+    raw = rng.integers(0, 256, n).astype(np.int32)
+    valid = rng.random(n) < 0.8          # units that are not literals
+    return ctx, raw, valid
 
 
 def test_relabel_kernel_matches_reference():
     rng = np.random.default_rng(5)
-    max_chunks, chunk_units = 3, 700
-    nunits = np.asarray([700, 0, 311], np.int32)
-    a, chunk_stride, lits = _pack_units(rng, max_chunks, chunk_units, nunits)
-
+    ctx, raw, valid = _literals(rng, 3000)
     r2s, s2r = mops.initial_state()
-    a2, r2s2, s2r2 = rlk.relabel_block(
-        jnp.asarray(a), jnp.asarray(nunits), r2s, s2r,
-        chunk_stride=chunk_stride, max_chunks=max_chunks, interpret=True)
-
+    got, r2s2, s2r2 = rlk.encode_relabel(
+        r2s, s2r, jnp.asarray(ctx), jnp.asarray(raw), jnp.asarray(valid),
+        interpret=True)
     ranks, r2s_ref, s2r_ref = mops.encode_relabel_reference(
-        np.asarray(r2s), np.asarray(s2r),
-        [c for c, _ in lits], [b for _, b in lits])
-
-    a2 = np.asarray(a2).reshape(max_chunks, chunk_stride)
-    a0 = a.reshape(max_chunks, chunk_stride)
-    k = 0
-    for c in range(max_chunks):
-        for u in range(nunits[c]):
-            w0, w2 = int(a0[c, u]), int(a2[c, u])
-            if (w0 >> 10) & 3 == 1:
-                assert w2 == (w0 & ~1023) | int(ranks[k]), (c, u)
-                k += 1
-            else:
-                assert w2 == w0, (c, u)
-    assert k == len(lits)
+        np.asarray(r2s), np.asarray(s2r), ctx[valid], raw[valid])
+    got = np.asarray(got)
+    assert got[valid].tolist() == ranks.tolist()
+    assert not got[~valid].any()
     assert np.array_equal(np.asarray(r2s2), r2s_ref)
     assert np.array_equal(np.asarray(s2r2), s2r_ref)
 
     # carried state: a second block continues the chain exactly
-    nunits_b = np.asarray([120, 64, 0], np.int32)
-    b, _, lits_b = _pack_units(rng, max_chunks, chunk_units, nunits_b)
-    b2, r2s3, s2r3 = rlk.relabel_block(
-        jnp.asarray(b), jnp.asarray(nunits_b), r2s2, s2r2,
-        chunk_stride=chunk_stride, max_chunks=max_chunks, interpret=True)
-    ranks_b, r2s_ref2, _ = mops.encode_relabel_reference(
-        r2s_ref, s2r_ref, [c for c, _ in lits_b], [x for _, x in lits_b])
-    b2 = np.asarray(b2).reshape(max_chunks, chunk_stride)
-    b0 = b.reshape(max_chunks, chunk_stride)
-    k = 0
-    for c in range(max_chunks):
-        for u in range(nunits_b[c]):
-            if (int(b0[c, u]) >> 10) & 3 == 1:
-                assert int(b2[c, u]) & 1023 == int(ranks_b[k])
-                k += 1
+    ctx_b, raw_b, valid_b = _literals(rng, 700, hot_frac=0.9)
+    got_b, r2s3, s2r3 = rlk.encode_relabel(
+        r2s2, s2r2, jnp.asarray(ctx_b), jnp.asarray(raw_b),
+        jnp.asarray(valid_b), interpret=True)
+    ranks_b, r2s_ref2, s2r_ref2 = mops.encode_relabel_reference(
+        r2s_ref, s2r_ref, ctx_b[valid_b], raw_b[valid_b])
+    assert np.asarray(got_b)[valid_b].tolist() == ranks_b.tolist()
     assert np.array_equal(np.asarray(r2s3), r2s_ref2)
+    assert np.array_equal(np.asarray(s2r3), s2r_ref2)
 
 
-def test_state_pack_roundtrip():
+def test_sort_literals_runs():
+    # the lockstep walk relies on contiguous, stream-ordered context runs
     rng = np.random.default_rng(1)
-    r2s = jnp.asarray(rng.integers(0, 256, (256, 256), dtype=np.int32))
-    s2r = jnp.asarray(rng.integers(0, 256, (256, 256), dtype=np.int32))
-    a, b = rlk.unpack_state(rlk.pack_state(r2s, s2r))
-    assert np.array_equal(np.asarray(a), np.asarray(r2s))
-    assert np.array_equal(np.asarray(b), np.asarray(s2r))
+    ctx, raw, valid = _literals(rng, 500)
+    order, raw_s, start, length, max_run = (
+        np.asarray(a) for a in rlk.sort_literals(
+            jnp.asarray(ctx), jnp.asarray(raw), jnp.asarray(valid)))
+    for c in range(256):
+        idx = np.flatnonzero(valid & (ctx == c))
+        assert length[c] == len(idx)
+        run = order[start[c]: start[c] + length[c]]
+        assert run.tolist() == idx.tolist()
+        assert raw_s[start[c]: start[c] + length[c]].tolist() \
+            == raw[idx].tolist()
+    assert int(max_run[0]) == int(length.max())
+    assert int(length.sum()) == int(valid.sum())

@@ -1,4 +1,5 @@
-"""Device ROLZ tokenizer/resolver + MTF relabel vs the executable spec."""
+"""Device ROLZ tokenizer/resolver kernels + MTF relabel vs the executable
+spec (kernels in interpret mode on the CPU)."""
 
 import numpy as np
 import pytest
@@ -6,57 +7,12 @@ import jax.numpy as jnp
 
 from libzling_tpu import spec
 from libzling_tpu.ops import mtf as mops
-from libzling_tpu.ops import rolz as rops
-from libzling_tpu.tables import LEVEL_PARAMS, SENTINEL_LEN
+from libzling_tpu.ops import relabel_kernel as rlk
+from libzling_tpu.ops import resolve_kernel as rk
+from libzling_tpu.tables import SENTINEL_LEN
 
 from .test_spec_vs_reference import _mixed_blob
-
-MAX_UNITS = 65536
-
-
-def _pad_block(data: bytes) -> jnp.ndarray:
-    return jnp.asarray(
-        np.frombuffer(data + bytes(SENTINEL_LEN + 64), dtype=np.uint8))
-
-
-def _device_tokenize(data: bytes, level: int):
-    """Full-block device tokenize + MTF relabel -> zling token list."""
-    depth, lazy1, lazy2 = LEVEL_PARAMS[level]
-    block = _pad_block(data)
-    state = rops.enc_state_init()
-    r2s, s2r = mops.initial_state()
-    all_chunks = []
-    pos = 0
-    while pos < len(data):
-        state, sym, idx, upos, kind, n_units, n_tok, pos_new = rops.tokenize_chunk(
-            state, block, len(data), jnp.int32(pos), depth, lazy1, lazy2,
-            jnp.int32(262144), MAX_UNITS)
-        n_units = int(n_units)
-        sym = np.asarray(sym[:n_units])
-        idx = np.asarray(idx[:n_units])
-        upos = np.asarray(upos[:n_units])
-        kind = np.asarray(kind[:n_units])
-        # MTF relabel of the literal units (device op)
-        lit_mask = kind == rops.KIND_LITERAL
-        blocknp = np.asarray(block)
-        lit_ctx = blocknp[np.maximum(upos - 1, 0)][lit_mask]
-        lit_raw = blocknp[upos][lit_mask]
-        sym2 = sym.copy()
-        if len(lit_ctx):
-            ranks, r2s, s2r = mops.encode_relabel(
-                r2s, s2r,
-                jnp.asarray(lit_ctx, jnp.int32), jnp.asarray(lit_raw, jnp.int32),
-                jnp.ones(len(lit_ctx), bool))
-            sym2[lit_mask] = np.asarray(ranks[: len(lit_ctx)])
-        # expand to zling token stream
-        tokens = []
-        for s, ix, k in zip(sym2, idx, kind):
-            tokens.append(int(s))
-            if k == rops.KIND_MATCH:
-                tokens.append(int(ix))
-        all_chunks.append((tokens, int(pos_new), int(n_tok)))
-        pos = int(pos_new)
-    return all_chunks
+from .test_tokenize_kernel import run_kernel
 
 
 @pytest.mark.parametrize("level", [0, 2, 4])
@@ -67,7 +23,7 @@ def test_tokenize_matches_spec(level):
     block = bytearray(data) + bytearray(SENTINEL_LEN)
     expect_tokens, expect_pos = enc.encode_chunk(level, block, len(data), 0)
 
-    got_chunks = _device_tokenize(data, level)
+    got_chunks = run_kernel(data, [level], 262144, 1, 65536)
     assert len(got_chunks) == 1
     got_tokens, got_pos, got_ntok = got_chunks[0]
     assert got_pos == expect_pos
@@ -81,8 +37,19 @@ def test_tokenize_small_edge_cases():
         enc.reset()
         block = bytearray(data) + bytearray(SENTINEL_LEN)
         expect_tokens, expect_pos = enc.encode_chunk(0, block, len(data), 0)
-        got_tokens, got_pos, _ = _device_tokenize(data, 0)[0]
+        got_tokens, got_pos, _ = run_kernel(data, [0], 262144, 1, 512)[0]
         assert (got_tokens, got_pos) == (expect_tokens, expect_pos), data
+
+
+def _resolve(tokens, encpos):
+    toks = np.zeros((1, len(tokens) + 2), np.int32)
+    toks[0, :len(tokens)] = tokens
+    bases, out_bytes = rk.block_layout([encpos])
+    out, status, _ = rk.resolve_stream(
+        jnp.asarray(toks), [len(tokens)], [encpos], [1], bases, out_bytes,
+        interpret=True)
+    status = np.asarray(status)[0]
+    return bytes(np.asarray(out)[:encpos]), int(status[0]), not status[2]
 
 
 @pytest.mark.parametrize("level", [0, 4])
@@ -92,17 +59,10 @@ def test_resolve_roundtrip(level):
     enc.reset()
     block = bytearray(data) + bytearray(SENTINEL_LEN)
     tokens, encpos = enc.encode_chunk(level, block, len(data), 0)
-
-    state = rops.dec_state_init()
-    r2s, _ = mops.initial_state()
-    out = jnp.zeros(len(data) + SENTINEL_LEN + 64, jnp.uint8)
-    toks = jnp.asarray(np.asarray(tokens, np.int32))
-    state, r2s, out, opos, ok = rops.resolve_chunk(
-        state, r2s, toks, jnp.int32(len(tokens)), out, jnp.int32(0),
-        jnp.int32(encpos), out.shape[0])
-    assert bool(ok)
-    assert int(opos) == encpos
-    assert bytes(np.asarray(out[:encpos])) == data[:encpos]
+    out, opos, ok = _resolve(tokens, encpos)
+    assert ok
+    assert opos == encpos
+    assert out == data[:encpos]
 
 
 def test_resolve_rejects_corrupt():
@@ -117,13 +77,27 @@ def test_resolve_rejects_corrupt():
         if t >= 258:
             bad[i + 1] = 0
             break
-    state = rops.dec_state_init()
-    r2s, _ = mops.initial_state()
-    out = jnp.zeros(len(data) + SENTINEL_LEN + 64, jnp.uint8)
-    _, _, _, _, ok = rops.resolve_chunk(
-        state, r2s, jnp.asarray(np.asarray(bad, np.int32)),
-        jnp.int32(len(bad)), out, jnp.int32(0), jnp.int32(encpos), out.shape[0])
-    assert not bool(ok)
+    _, _, ok = _resolve(bad, encpos)
+    assert not ok
+
+
+@pytest.mark.parametrize("symbol", [-1, -256, -(1 << 31), 514])
+def test_resolve_rejects_symbol_outside_alphabet(symbol):
+    # token slots the entropy kernel left unwritten (it stops early on a
+    # corrupt chunk) may hold anything; such a symbol must flag the chunk,
+    # not index the MTF tables
+    # the chunk ends in a literal, so no later token can expose the damage
+    data = b"hello world hello world hello hello hello world" * 20 + b"#"
+    enc = spec.RolzEncoder()
+    enc.reset()
+    block = bytearray(data) + bytearray(SENTINEL_LEN)
+    tokens, encpos = enc.encode_chunk(1, block, len(data), 0)
+    i = 0
+    while i < len(tokens) - 1:
+        i += 2 if tokens[i] >= 258 else 1
+    assert i == len(tokens) - 1 and tokens[i] < 256
+    _, _, ok = _resolve(tokens[:-1] + [symbol], encpos)
+    assert not ok
 
 
 def test_mtf_relabel_matches_reference():
@@ -135,8 +109,9 @@ def test_mtf_relabel_matches_reference():
     raw = rng.integers(0, 256, L).astype(np.int32)
     r2s, s2r = mops.initial_state()
     expect, er2s, es2r = mops.encode_relabel_reference(r2s, s2r, ctx, raw)
-    got, gr2s, gs2r = mops.encode_relabel(
-        r2s, s2r, jnp.asarray(ctx), jnp.asarray(raw), jnp.ones(L, bool))
+    got, gr2s, gs2r = rlk.encode_relabel(
+        r2s, s2r, jnp.asarray(ctx), jnp.asarray(raw), jnp.ones(L, bool),
+        interpret=True)
     assert np.asarray(got).tolist() == expect.tolist()
     assert np.array_equal(np.asarray(gr2s), er2s)
     assert np.array_equal(np.asarray(gs2r), es2r)

@@ -1,37 +1,57 @@
-"""Golden tests for the Pallas ROLZ tokenizer kernel.
+"""Golden tests for the ROLZ tokenizer kernel (interpret mode on the CPU).
 
-Interpreter mode on CPU; the oracle is ops/rolz.py tokenize_chunk (itself
-golden-tested against the reference binary), driven chunk-by-chunk with the
-same level schedule.
+The oracle is the executable spec's chunk encoder (itself golden-tested
+against the reference binary), driven chunk by chunk with the same level
+schedule; literal units carry raw bytes, so the spec's MTF is applied to
+them in unit order before comparing token streams.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import pytest
-
 import jax.numpy as jnp
 
-from libzling_tpu.ops import rolz as rops
+from libzling_tpu import spec
 from libzling_tpu.ops import tokenize_kernel as tk
 from libzling_tpu.tables import SENTINEL_LEN
 
 
-def _oracle(block: bytes, levels, max_tokens, max_chunks, chunk_units):
-    buf = jnp.asarray(np.frombuffer(block + bytes(SENTINEL_LEN + 64), np.uint8))
-    state = rops.enc_state_init()
-    pos = jnp.int32(0)
+def run_kernel(data: bytes, levels, max_tokens, max_chunks, chunk_units):
+    """Tokenize on the kernel; returns per-chunk (tokens, encpos, ntoks)."""
+    block = np.zeros(len(data) + tk.BLOCK_PAD, np.uint8)
+    block[:len(data)] = np.frombuffer(data, np.uint8)
+    units, stat = tk.tokenize_block(
+        jnp.asarray(block), jnp.int32(len(data)),
+        jnp.asarray(np.asarray(levels, np.int32)), jnp.int32(max_tokens),
+        max_chunks=max_chunks, chunk_units=chunk_units, interpret=True)
+    units, stat = np.asarray(units), np.asarray(stat)
+    mtf = spec.RolzEncoder().mtf  # one MTF chain for the whole block
     out = []
-    ltab = tk._LEVEL_TABLE
-    for c in range(max_chunks):
-        if int(pos) >= len(block):
-            break
-        d, l1, l2 = (int(v) for v in ltab[int(levels[c])])
-        state, sym, idx, upos, kind, nu, nt, pos = rops.tokenize_chunk(
-            state, buf, len(block), pos, jnp.int32(d), jnp.int32(l1),
-            jnp.int32(l2), jnp.int32(max_tokens), chunk_units)
-        out.append((np.asarray(sym), np.asarray(idx), np.asarray(upos),
-                    np.asarray(kind), int(nu), int(nt), int(pos)))
+    for c in range(int(stat[max_chunks, 0])):
+        toks = []
+        for w in units[c, :stat[c, 0]].tolist():
+            sym, kind, aux = w & 1023, (w >> 10) & 3, w >> 14
+            if kind == tk.KIND_LITERAL:
+                toks.append(mtf[aux & 255].encode(sym))
+            else:
+                toks.append(sym)
+                if kind == tk.KIND_MATCH:
+                    toks.append(aux & 4095)
+        out.append((toks, int(stat[c, 2]), int(stat[c, 1])))
+    return out
+
+
+def run_spec(data: bytes, levels, max_tokens):
+    enc = spec.RolzEncoder()
+    enc.reset()
+    buf = bytearray(data) + bytearray(SENTINEL_LEN)
+    out, pos, c = [], 0, 0
+    while pos < len(data):
+        toks, pos = enc.encode_chunk(int(levels[c]), buf, len(data), pos,
+                                     max_tokens)
+        out.append((toks, pos, len(toks)))
+        c += 1
     return out
 
 
@@ -43,66 +63,30 @@ def test_tokenize_kernel_matches_oracle(level, seed, size):
     max_tokens, max_chunks, chunk_units = 700, 12, 700
     levels = np.full(max_chunks, level, np.int32)
     levels[1] = 0  # mixed schedule mid-block
-
-    sym, idx, upos, kind, nunits, ntoks, encpos, n_chunks, err = \
-        tk.tokenize_block(data, levels, max_tokens, max_chunks, chunk_units,
-                          interpret=True)
-    assert err == 0
-    ref = _oracle(data, levels, max_tokens, max_chunks, chunk_units)
-    assert n_chunks == len(ref)
-    for c, (rsym, ridx, rupos, rkind, rnu, rnt, rpos) in enumerate(ref):
-        assert int(nunits[c]) == rnu, f"chunk {c} nunits"
-        assert int(ntoks[c]) == rnt, f"chunk {c} ntoks"
-        assert int(encpos[c]) == rpos, f"chunk {c} encpos"
-        assert np.asarray(sym[c])[:rnu].tolist() == rsym[:rnu].tolist(), c
-        assert np.asarray(idx[c])[:rnu].tolist() == ridx[:rnu].tolist(), c
-        assert np.asarray(upos[c])[:rnu].tolist() == rupos[:rnu].tolist(), c
-        assert np.asarray(kind[c])[:rnu].tolist() == rkind[:rnu].tolist(), c
+    assert run_kernel(data, levels, max_tokens, max_chunks, chunk_units) \
+        == run_spec(data, levels, max_tokens)
 
 
 def test_tokenize_kernel_extended_level():
-    # e5 (depth 24, lazy 6/3) exceeds the jitted tokenizer's static bounds;
-    # validate against the executable spec instead
-    from libzling_tpu import spec
-
+    # e5 (deeper chain walks and lazy probes) is exact on the kernel
     data = (b"abcabcabd" * 120) + b"the quick brown fox " * 30
-    max_tokens, max_chunks, chunk_units = 4000, 4, 4000
-    sym, idx, upos, kind, nunits, ntoks, encpos, n_chunks, err = \
-        tk.tokenize_block(data, [5] * max_chunks, max_tokens, max_chunks,
-                          chunk_units, interpret=True)
-    assert err == 0 and n_chunks == 1
-    enc = spec.RolzEncoder()
-    buf = bytearray(data) + bytearray(400)
-    tokens, pos = enc.encode_chunk(5, buf, len(data), 0, max_tokens)
-    assert int(encpos[0]) == pos
-    # reconstruct the kernel's token stream (raw literals -> spec applies MTF,
-    # so compare only the structure: kinds, positions, match lens/idx)
-    k_tok = []
-    mtf = spec.RolzEncoder().mtf  # fresh MTF chain, applied in unit order
-    for u in range(int(nunits[0])):
-        s, kd, up = int(sym[0][u]), int(kind[0][u]), int(upos[0][u])
-        if kd == 3:
-            k_tok.append(s)
-            k_tok.append(int(idx[0][u]))
-        elif kd == 1:
-            k_tok.append(mtf[buf[up - 1]].encode(buf[up]))
-        else:
-            k_tok.append(s)
-    assert k_tok == tokens
+    levels = [5] * 4
+    got = run_kernel(data, levels, 4000, 4, 4000)
+    assert len(got) == 1
+    assert got == run_spec(data, levels, 4000)
 
 
 def test_mesh_encode_with_pallas_tokenizer():
     # the kernel lane slots into the canonical mesh path: byte-identical
-    # stream (tiny data: the kernel interprets per-unit on CPU)
+    # stream (tiny data: the kernel interprets per unit on the CPU)
     import jax
-    from libzling_tpu import spec
     from libzling_tpu.parallel import mesh as pmesh
 
     rng = np.random.default_rng(11)
-    data = (b"mesh pallas tokenizer lane " * 60
+    data = (b"mesh tokenizer lane " * 60
             + bytes(rng.integers(0, 256, 800, dtype=np.uint8)))
     mesh = pmesh.make_mesh(jax.devices()[:2])
     stream = pmesh.mesh_encode(data, level=1, mesh=mesh, block_size=1024,
-                               max_tokens=400, tokenizer="pallas")
+                               max_tokens=400)
     ref = spec.encode(data, level=1, block_size=1024, max_tokens=400)
     assert stream == ref
